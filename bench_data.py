@@ -8,7 +8,7 @@ Builds (once, cached under bench_work/) the standard benchmark config:
     planted in the genome; the rest probe random background).
 
 The same files feed both the reference binary (CPU baseline measurement,
-recorded in BASELINE.md) and bench.py (the TPU engine measurement), so the
+recorded in BASELINE.md) and bench.py (this engine's measurement), so the
 work is identical on both sides.
 """
 

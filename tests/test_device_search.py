@@ -119,8 +119,8 @@ def test_device_screen_conservative(engine):
     w = 7
     min_tm = 40.0
     conc = 9e-7
-    from tntblast_tpu.screen import TpuScreen
-    scr = TpuScreen(engine, dangle=False)
+    from tntblast_tpu.screen import DeviceScreen
+    scr = DeviceScreen(engine, dangle=False)
     conds = scr.conditions({"min_tm": min_tm, "max_dg": 0.0}, conc)
     dg = np.stack([np.asarray(scr._dg_table(T)) for _, T, _ in conds])
     thr = np.array([[ms] for _, _, ms in conds], dtype=np.int32)
@@ -176,8 +176,8 @@ def test_device_screen_degenerate_target_conservative(engine):
 
     w = 7
     conc = 9e-7
-    from tntblast_tpu.screen import TpuScreen
-    scr = TpuScreen(engine, dangle=False)
+    from tntblast_tpu.screen import DeviceScreen
+    scr = DeviceScreen(engine, dangle=False)
 
     # exact Tm of the planted (N-containing) site
     codes = C.ASCII_TO_MELT[np.frombuffer(fwd.encode(), np.uint8)]
@@ -329,51 +329,165 @@ def test_batch_overflow_does_not_corrupt_batchmates(engine):
     np.testing.assert_array_equal(batch[1]["counts"], alone["counts"])
 
 
-@pytest.mark.parametrize("impl", ["aligned", "pallas"])
-def test_pallas_panel_matches_xla_panel(engine, monkeypatch, impl):
-    """Every non-default screen implementation (the aligned per-block
-    GEMM form and the Pallas kernel, interpret mode on CPU) must produce
-    the identical resolve output to the default flat chunk path: same
-    kept seeds, kmin, eval words, counts."""
-    monkeypatch.setenv("TNTBLAST_TPU_SCREEN_IMPL", impl)
-    import tntblast_tpu.parallel.device_search as ds
+def _screen_reference(ptb, ts_slot, ql, wt_e, nc_all, eval_on):
+    """Plain numpy transcription of the screening DP for ONE slot's
+    windows (B, wt).  Returns (best (nc, B), mgmax (B,), M_rows
+    (wq, B, wt)): M rows of the eval condition (the last) with eval_on,
+    of the first condition otherwise."""
+    NEG = -(1 << 29)
+    B, wt = ptb.shape
+    wq = ts_slot.shape[0]
+    relu = lambda x: np.maximum(x, 0)   # noqa: E731
+    prevM = np.full((nc_all, B, wt), -1, np.int64)
+    prevIq = prevM.copy()
+    prevIt = prevM.copy()
+    best = np.full((nc_all, B), -1, np.int64)
+    prevMg = np.full((B, wt), NEG, np.int64)
+    mgmax = np.full(B, NEG, np.int64)
+    col_ok = np.arange(wt)[None, :] < wt_e
+    M_rows = np.zeros((wq, B, wt), np.int64)
 
-    rng = np.random.default_rng(41)
-    fwd = "TTGACCTAGATATTCAGCAAC"
-    rev = "GGGAGAGACTCACCCAAAGATC"
-    oligos = [(fwd, True), (fwd, False), (rev, True), (rev, False)]
-    w = 7
-    frag = rng.integers(0, 4, 20000).astype(np.uint8)
-    site = C.ASCII_TO_DB[np.frombuffer(fwd.encode(), np.uint8)]
-    for pos in (3000, 9000, 15000):
-        frag[pos:pos + len(site)] = site
-    frag2 = rng.integers(0, 4, 14000).astype(np.uint8)
+    def shl(x, fill=-1):
+        out = np.full_like(x, fill)
+        out[..., 1:] = x[..., :-1]
+        return out
 
-    cfg = PanelConfig(word_len=w, num_os=4, max_words=16, wq_max=22,
-                      tile_len=32768, cap=1024, num_cond=1)
-    dg = engine.delta_g().astype(np.int32).reshape(1, -1)
-    # a real screening threshold so keep is non-trivial
-    thr = np.full((1, 4), -120000, dtype=np.int32)
-    ev_dg = np.ascontiguousarray(
-        engine.delta_g().astype(np.int32).reshape(-1))
-    from tntblast_tpu.thermo.santa_lucia import build_tables
-    tables = build_tables()
+    for r in range(wq):
+        e = ts_slot[r][ptb]                      # (B, wt, nc*7)
+        e = np.moveaxis(e.reshape(B, wt, nc_all, 7), 2, 0)
+        dgmm, dgmq, dgmt = e[..., 0], e[..., 1], e[..., 2]
+        dgqi, dgqe = e[..., 3], e[..., 4]
+        dgti, dgte = e[..., 5], e[..., 6]
+        m = np.maximum(
+            np.maximum(relu(shl(prevM)) - dgmm, relu(shl(prevIq)) - dgmq),
+            relu(shl(prevIt)) - dgmt)
+        it = np.maximum(relu(prevM) - dgti, relu(prevIt) - dgte)
+        a = np.maximum(relu(shl(m)) - dgqi, -dgqe)
+        iq = np.empty_like(a)
+        iq[..., 0] = a[..., 0]
+        for j in range(1, wt):
+            iq[..., j] = np.maximum(a[..., j], iq[..., j - 1] - dgqe[..., j])
+        if r < ql:
+            best = np.maximum(best,
+                              np.where(col_ok[None], m, -1).max(axis=2))
+        if eval_on:
+            g1 = np.where(shl(prevMg, NEG) >= 0,
+                          shl(prevMg, NEG) - dgmm[-1], NEG)
+            mg = np.maximum(np.maximum(g1, relu(shl(prevIq[-1])) - dgmq[-1]),
+                            relu(shl(prevIt[-1])) - dgmt[-1])
+            if r < ql:
+                mgmax = np.maximum(
+                    mgmax, np.where(col_ok, mg, NEG).max(axis=1))
+            prevMg = mg
+            M_rows[r] = m[-1]
+        else:
+            M_rows[r] = m[0]
+        prevM, prevIq, prevIt = m, iq, it
+    return best, mgmax, M_rows
 
-    pan_p = DevicePanel(_mk_panel(oligos, w), cfg, dg, thr,
-                        eval_dg=ev_dg, thermo_tables=tables)
-    assert pan_p.screen_impl == impl
-    monkeypatch.setenv("TNTBLAST_TPU_SCREEN_IMPL", "flat")
-    pan_x = DevicePanel(_mk_panel(oligos, w), cfg, dg, thr,
-                        eval_dg=ev_dg, thermo_tables=tables)
-    assert pan_x.screen_impl == "flat"
 
-    rp = pan_p.resolve_fragments(pan_p.submit_fragments([frag, frag2]))
-    rx = pan_x.resolve_fragments(pan_x.submit_fragments([frag, frag2]))
-    for i in range(2):
-        assert rp[i]["overflow"] == rx[i]["overflow"]
-        assert rp[i]["n_kept"] == rx[i]["n_kept"] > 0
-        np.testing.assert_array_equal(rp[i]["os_k"], rx[i]["os_k"])
-        np.testing.assert_array_equal(rp[i]["p_k"], rx[i]["p_k"])
-        np.testing.assert_array_equal(rp[i]["kmin_k"], rx[i]["kmin_k"])
-        np.testing.assert_array_equal(rp[i]["counts"], rx[i]["counts"])
-        np.testing.assert_array_equal(rp[i]["eval"], rx[i]["eval"])
+def _check_screen_dp(seed_val, n_real, wq_max, wt_max, nc_all, B, eval_on):
+    """screen_dp (jitted, on the default device) against the numpy
+    recurrence on random mixed-slot windows: best scores of every
+    condition, and with eval_on the gapped-best channel and every real M
+    row, all exactly."""
+    import functools
+
+    import jax
+
+    from tntblast_tpu.parallel.device_search import screen_dp
+
+    rng = np.random.default_rng(seed_val)
+    ts = rng.integers(-60000, 60000,
+                      (n_real, wq_max, 30, nc_all * 7)).astype(np.int32)
+    ql_slot = rng.integers(max(4, wq_max - 6), wq_max + 1, n_real)
+    # slot n_real is pool padding: zero energies, ql 1
+    sl = rng.integers(0, n_real + 1, B).astype(np.int32)
+    ql_all = np.append(ql_slot, 1).astype(np.int32)
+    ql = ql_all[sl]
+    wt_e = (ql + 8).astype(np.int32)
+    ptb = rng.integers(0, 30, (B, wt_max)).astype(np.int32)
+
+    run = jax.jit(functools.partial(screen_dp, eval_on=eval_on))
+    best, mgmax, mrows = (np.asarray(x) for x in run(
+        ptb, sl, ql, wt_e, ts.astype(np.float32)))
+    assert best.shape == (nc_all, B)
+    assert mrows.shape == (wq_max, B, wt_max + 1)
+
+    ts_pad = np.concatenate([ts, np.zeros_like(ts[:1])]).astype(np.int64)
+    for s in range(n_real + 1):
+        sel = np.flatnonzero(sl == s)
+        if sel.size == 0:
+            continue
+        q = int(ql_all[s])
+        rb, rmg, rM = _screen_reference(ptb[sel], ts_pad[s], q, q + 8,
+                                        nc_all, eval_on)
+        np.testing.assert_array_equal(best[:, sel], rb, f"best slot {s}")
+        if eval_on:
+            np.testing.assert_array_equal(mgmax[sel], rmg, f"mg slot {s}")
+            np.testing.assert_array_equal(mrows[:q, sel, 1:], rM[:q],
+                                          f"M rows slot {s}")
+
+
+@pytest.mark.parametrize("eval_on", [False, True])
+def test_screen_dp_matches_numpy(eval_on):
+    _check_screen_dp(5, n_real=5, wq_max=12, wt_max=20,
+                     nc_all=3 if eval_on else 2, B=300, eval_on=eval_on)
+
+
+@pytest.mark.gpu
+def test_screen_dp_matches_numpy_on_gpu(gpu):
+    """The same check on the card at bench widths: 24-nt oligos, 32-column
+    windows, two screening conditions plus the eval condition, one full
+    screen chunk of windows over 40 slots."""
+    from tntblast_tpu.parallel.device_search import SCREEN_CHUNK
+    _check_screen_dp(6, n_real=40, wq_max=24, wt_max=32, nc_all=3,
+                     B=SCREEN_CHUNK, eval_on=True)
+
+
+@pytest.mark.gpu
+def test_panel_step_gpu_matches_cpu(gpu, engine):
+    """The whole panel step (seeding, pooling, screen, device eval,
+    compaction) on the card must return exactly what the CPU backend
+    returns for the bench panel on bench-sized fragments."""
+    import os
+
+    import jax
+
+    import bench_data
+    from tntblast_tpu.model import (
+        expand_degenerate_signatures, read_input_file)
+    from tntblast_tpu.options import Options
+    from tntblast_tpu.parallel.panel import FragmentPanelManager
+
+    work = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "bench_work")
+    fna, panel_path = bench_data.build(work)
+    opt = Options()
+    opt.parse(["-i", panel_path, "-d", fna, "-A", "PCR", "-e", "40",
+               "-E", "45", "-l", "2000", "-o", os.devnull])
+    opt.sig_list = expand_degenerate_signatures(
+        read_input_file(opt.input_filename, opt.ignore_probe, False),
+        opt.degen_rescale_ct)
+    mgr = FragmentPanelManager(opt, engine)
+    rng = np.random.default_rng(bench_data.SEED)
+    frags = [rng.integers(0, 4, 500_000).astype(np.uint8) for _ in range(2)]
+    # planted amplicon sites make kept windows and device-evaluated hits
+    for f in frags:
+        for sig in opt.sig_list[:bench_data.NPLANT]:
+            fw = C.ASCII_TO_DB[np.frombuffer(sig.forward_oligo.encode(),
+                                             np.uint8)]
+            rv = C.ASCII_TO_DB[np.frombuffer(sig.reverse_oligo.encode(),
+                                             np.uint8)]
+            rc = bench_data._revcomp(rv)
+            for pos in rng.integers(0, 490_000, 6):
+                f[pos:pos + len(fw)] = fw
+                f[pos + 150 - len(rc):pos + 150] = rc
+    g = mgr.groups[0]
+    dp = g.device_panel(mgr._tile_len(500_000))
+    on_gpu = [np.asarray(x) for x in dp.submit_fragments(frags)[1]]
+    with jax.default_device(jax.devices("cpu")[0]):
+        on_cpu = [np.asarray(x) for x in dp.submit_fragments(frags)[1]]
+    assert int(on_gpu[0][0]) > 0
+    for name, a, b in zip(["header", "kept"], on_gpu, on_cpu):
+        np.testing.assert_array_equal(a, b, name)

@@ -285,3 +285,104 @@ def test_eval_flat_matches_segment(engine, tables):
                 np.testing.assert_array_equal(got, seg[k],
                                               err_msg=f"slot {s} field {k}")
         off += B
+
+
+@pytest.mark.gpu
+def test_eval_flat_matches_native_on_gpu(gpu, engine, tables):
+    """eval_flat on the card at bench widths (the bench panel's 20-24 nt
+    primers padded to 24 rows, 32-column windows), against the native
+    engine: every trusted window's dH and dS as float32 bit patterns,
+    Tm, ranges, mismatches and anchors must match exactly."""
+    import os
+
+    import bench_data
+    from tntblast_tpu.ops.eval_gapless_jax import eval_flat
+
+    work = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "bench_work")
+    _, panel_path = bench_data.build(work)
+    from tntblast_tpu import constants as C
+    slots = [C.ASCII_TO_MELT[np.frombuffer(oligo.encode(), np.uint8)]
+             for line in open(panel_path).read().split("\n")
+             for oligo in line.split("\t")[1:]]
+    wq_max, wt_max = 24, 32
+    rng = np.random.default_rng(bench_data.SEED)
+    dg = engine.delta_g().astype(np.int64).reshape(-1)
+    ev_tabs = np.zeros((len(slots), wq_max, 25, 4), np.float32)
+    ev_loop = np.zeros((len(slots), wq_max + 2), np.float32)
+    cols = {k: [] for k in ("M", "mg", "t", "q", "ql", "wt", "sl")}
+    per_slot = []
+    B = 128
+    for s, q in enumerate(slots):
+        ql = len(q)
+        wt = ql + 8
+        t_batch = rng.integers(0, 4, (B, wt)).astype(np.int64)
+        site = (3 - q[::-1].astype(np.int64)) % 4
+        for b in range(0, B, 2):
+            off = int(rng.integers(0, wt - ql + 1))
+            t_batch[b, off:off + ql] = site
+            for _ in range(int(rng.integers(0, 5))):
+                t_batch[b, int(rng.integers(0, wt))] = rng.integers(0, 4)
+        M_rows, mg_max = _dp_rows(q, t_batch, dg)
+        tabs = build_slot_eval_arrays(q, tables)
+        ev_tabs[s, :ql, :, 0] = tabs["Hstk"]
+        ev_tabs[s, :ql, :, 1] = tabs["Sstk"]
+        ev_tabs[s, :ql, :, 2] = tabs["Hlt"]
+        ev_tabs[s, :ql, :, 3] = tabs["Slt"]
+        ev_loop[s, :ql + 1] = tabs["loop2m"]
+        eval_const = (float(tabs["AT_H"]), float(tabs["AT_S"]),
+                      float(tabs["init_H"]), float(tabs["init_S"]))
+        Mp = np.full((wq_max, B, wt_max + 1), -1, np.int32)
+        Mp[:ql, :, :wt + 1] = M_rows
+        cols["M"].append(Mp)
+        cols["mg"].append(mg_max)
+        tp = np.zeros((B, wt_max), np.int32)
+        tp[:, :wt] = t_batch
+        cols["t"].append(tp)
+        qp = np.zeros((B, wq_max), np.int32)
+        qp[:, :ql] = q
+        cols["q"].append(qp)
+        cols["ql"].append(np.full(B, ql, np.int32))
+        cols["wt"].append(np.full(B, wt, np.int32))
+        cols["sl"].append(np.full(B, s, np.int32))
+        per_slot.append((q, t_batch))
+
+    sl = np.concatenate(cols["sl"])
+    out = eval_flat(
+        np.concatenate(cols["M"], axis=1), np.concatenate(cols["mg"]),
+        np.concatenate(cols["t"]), np.concatenate(cols["q"]),
+        np.concatenate(cols["ql"]), np.concatenate(cols["wt"]),
+        (sl[:, None] == np.arange(len(slots))[None, :]).astype(np.float32),
+        ev_tabs, ev_loop, eval_const)
+    out = {k: np.asarray(v) for k, v in out.items()}
+
+    conc = np.float32(9e-7)
+    n_trusted = 0
+    for s, (q, t_batch) in enumerate(per_slot):
+        ref = engine.eval_batch(
+            native.HETERO, [q] * B,
+            [t_batch[b].astype(np.uint8) for b in range(B)],
+            np.full(B, conc, dtype=np.float32))
+        for b in range(B):
+            i = s * B + b
+            if not out["trusted"][i]:
+                continue
+            n_trusted += 1
+            if out["tm_zero"][i]:
+                assert ref["tm"][b] == np.float32(0.0), (s, b)
+                continue
+            tm, dS_final = eg.finish_eval(out["dH"][i], out["dS"][i],
+                                          int(out["num_base"][i]),
+                                          engine.na, conc)
+            assert tm == ref["tm"][b], (s, b)
+            assert (np.float32(out["dH"][i]).view(np.int32)
+                    == np.float32(ref["dH"][b]).view(np.int32)), (s, b)
+            assert (np.float32(dS_final).view(np.int32)
+                    == np.float32(ref["dS"][b]).view(np.int32)), (s, b)
+            assert ([out["fm_q"][i], out["lm_q"][i]]
+                    == list(ref["q_range"][b])), (s, b)
+            q_aligned = out["lm_q"][i] - out["fm_q"][i] + 1
+            assert out["mm"][i] + (len(q) - q_aligned) == ref["num_mm"][b]
+            assert out["anchor5"][i] == ref["anchor5"][b], (s, b)
+            assert out["anchor3"][i] == ref["anchor3"][b], (s, b)
+    assert n_trusted > 0.5 * len(sl), n_trusted

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 
 from tntblast_tpu import native
-from tntblast_tpu.screen import TpuScreen
+from tntblast_tpu.screen import DeviceScreen
 
 RNG = np.random.default_rng(20260820)
 COMP = {0: 3, 1: 2, 2: 1, 3: 0}
@@ -191,7 +191,7 @@ def test_dinkelbach_screen_active_and_prunes():
     non-empty and the e2e dinkelbach screen config must actually prune
     (the pcr_dinkelbach golden-parity run is in test_e2e_screen.py)."""
     eng = native.MeltEngine(dinkelbach=True, n_threads=1)
-    scr = TpuScreen(eng)
+    scr = DeviceScreen(eng)
     conds = scr.conditions({"min_tm": 40.0, "max_dg": 100.0}, CONC)
     assert conds, "screen disabled under dinkelbach"
     assert any(tag == "tm" for tag, _, _ in conds)

@@ -1,7 +1,7 @@
 """Parity of the device DP kernel against the native engine's DP score.
 
 The JAX batched DP must reproduce the reference align_dimer max score
-exactly (int32 fixed point) — it is the screening stage of the TPU
+exactly (int32 fixed point) — it is the screening stage of the device
 pipeline and its conservativeness proof assumes score equality.
 """
 

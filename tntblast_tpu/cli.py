@@ -19,7 +19,7 @@ from tntblast_tpu.options import Options, OptionsError
 def usage_text():
     """Byte-identical reproduction of the reference usage screen
     (reference options.cpp:420-498, constants from tntblast.h), with the
-    TPU-specific flags appended at the end."""
+    device-path flags appended at the end."""
     return (
         f"thermonucleotideBLAST v.{C.VERSION}\n"
         "Options:\n"
@@ -80,8 +80,8 @@ def usage_text():
         "\t[--best-match] (Only save the best match, in Tm, between a query and target)\n"
         "\t[--blast-include <Limit search to include accessions or NCBI TaxIds from a BLAST database>] (may be repeated)\n"
         "\t[--blast-exclude <Limit search to exclude accessions or NCBI TaxId from a BLAST database>] (may be repeated)\n"
-        "\t[--tpu-screen <T|F>] (TPU seed+screen pipeline; output-invariant, default is F)\n"
-        "\t[--tpu-frag <T|F>] (synonym for --tpu-screen)\n"
+        "\t[--tpu-screen <T|F|A>] (device seed+screen pipeline on JAX's default backend; A = only on a GPU; output-invariant, default is F)\n"
+        "\t[--tpu-frag <T|F|A>] (synonym for --tpu-screen)\n"
         "\t[--mesh <T|F>] (shard fragments over all devices of a jax Mesh; output-invariant, default is F)\n"
     )
 
@@ -220,6 +220,9 @@ def local_main(argv, stdout=None):
         return 1
     except (ValueError, OSError) as e:
         print(f"Caught the std exception: {e}", file=sys.stderr)
+        return 1
+    except eng.DeviceError as e:
+        print(f"Caught the device error: {e}", file=sys.stderr)
         return 1
     return 0
 

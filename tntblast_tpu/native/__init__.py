@@ -23,7 +23,8 @@ _f32p = np.ctypeslib.ndpointer(dtype=np.float32, flags="C_CONTIGUOUS")
 _u8p = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
 
 
-def _build():
+def build():
+    """Compile the library from its sources."""
     cmd = [
         "g++", "-O3", "-std=c++14", "-shared", "-fPIC", "-pthread",
         # No -ffast-math: float semantics must be IEEE to match the
@@ -38,7 +39,7 @@ def _load():
     if (not os.path.exists(_LIB)
             or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)
             or os.path.getmtime(_LIB) < os.path.getmtime(_SRC_MELT)):
-        _build()
+        build()
     lib = ctypes.CDLL(_LIB)
 
     lib.tnt_engine_create.restype = ctypes.c_void_p

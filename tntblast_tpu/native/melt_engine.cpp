@@ -3,7 +3,7 @@
 // Exact reimplementation of the reference NucCruc semantics (reference:
 // nuc_cruc.{h,cpp}, nuc_cruc_anchor.cpp, nuc_cruc_output.cpp) as a batched,
 // thread-parallel C library with a flat C ABI (driven from Python via
-// ctypes, and reused by the TPU pipeline for traceback + exact re-scoring
+// ctypes, and reused by the device pipeline for traceback + exact re-scoring
 // of DP results computed on-device).
 //
 // Design notes (fresh implementation, structure-of-arrays, no class

@@ -87,7 +87,7 @@ class Options:
         self.hash_word_size = C.DEFAULT_HASH_WORD_SIZE
         self.fragment_target_threshold = C.DEFAULT_FRAGMENT_TARGET_LENGTH
         self.threshold_format = C.THRESHOLD_NONE
-        # TPU extension (not in the reference): batched device DP screening
+        # Device extension (not in the reference): batched device DP screening
         # of candidate windows before exact evaluation; --mesh additionally
         # shards fragment batches over every available device
         # (jax.sharding.Mesh — the multi-chip data-parallel runtime)
@@ -289,10 +289,9 @@ class Options:
 
     @staticmethod
     def parse_bool_auto(opt):
-        """T | F | A(uto): auto enables the device path only when the
-        health probe passes AND the link is fast enough to pay off
-        (devhealth) — the default-on-when-healthy policy of VERDICT r5
-        without regressing host-only or wedged-link runs."""
+        """T | F | A(uto): auto runs the device path when JAX's default
+        backend is a GPU and the host path otherwise
+        (engine.select_device_path)."""
         up = opt.upper()
         if up in ("A", "AUTO"):
             return "auto"

@@ -1,4 +1,4 @@
-"""Full-fragment device search step — the TPU-native inner loop.
+"""Full-fragment device search step — the device inner loop.
 
 One device program per fragment batch performs, for ALL oligos of the
 assay panel at once:
@@ -19,8 +19,8 @@ assay panel at once:
      (start = p-4, width oligo_len+8; minus strand complemented and
      reversed by static-roll selection — bind_oligo.cpp:136-254), per-
      slot oligo length/strand/thresholds ride as per-entry data and the
-     per-row energy/eval table rows are selected by exact one-hot MXU
-     matmuls; windows clipped by a fragment edge or whose covering words
+     per-row energy/eval table rows are selected by exact one-hot f32
+     products at Precision.HIGHEST (screen_dp); windows clipped by a fragment edge or whose covering words
      contain any non-ACGT base are routed to the host,
   5. the exact-integer thermodynamic DP at each screening temperature
      (conservative keep/discard per window — proof in screen.py) plus
@@ -31,7 +31,7 @@ list-building, culling and pairing semantics stay host-side and
 bit-identical.  The resolve payload is a single packed int32 buffer
 (header + kept-seed rows): one device-to-host transfer per batch.
 
-Multi-chip: the fragment axis is the data-parallel axis (the reference's
+Multi-device: the fragment axis is the data-parallel axis (the reference's
 "database segmentation", tntblast_local.cpp:318-324); oligos and tables
 are replicated.  parallel/mesh.py wraps this step in shard_map over a jax
 Mesh.
@@ -109,15 +109,14 @@ def _seed_fragment(frag_codes, frag_len, oligo_words, w_table, *,
       num_os) dummy when the table is gated off (see DevicePanel) — the
       static shape selects the path at trace time.
 
-    Table path (round 5): for each any-match position, the matching
+    Table path: for each any-match position, the matching
     (slot, k) pairs are extracted by lowest-set-bit iteration over the
     packed slot-occupancy / per-slot k-bitmask words — s_max and k_max
     are the PANEL-STATIC lane bounds (max slots sharing one word value,
     max repeats of one word inside one oligo; computed from the table at
     panel build).  The resulting (cap, s_max, k_max) candidate lanes are
     deduped by ONE small sort + ONE nonzero — ~10x less sorted data than
-    the round-4 dense (cap x num_os) nonzero cascade, which dominated
-    the measured device step (BASELINE.md round-5 bisection).
+    a dense (cap x num_os) nonzero cascade.
 
     Returns (slot, p, n_cand, counts, overflow, word, word_valid):
       slot/p: (cap,) int32 compacted ((diagonal, slot) lexicographic)
@@ -248,121 +247,116 @@ def _seed_fragment(frag_codes, frag_len, oligo_words, w_table, *,
     return slot, p, n_cand, counts, overflow, word, word_valid
 
 
+def screen_dp(ptb, sl, ql, wt_e, TS, *, eval_on):
+    """The screening DP over one chunk of mixed-slot windows.
 
+    ptb:  (B, wt_max) int32 (previous, current) target-pair index per
+          column, in [0, 30)
+    sl:   (B,) int32 slot of each window (a slot >= len(TS) selects zero
+          energies: pool padding)
+    ql:   (B,) int32 oligo length (DP rows) of each window
+    wt_e: (B,) int32 window width (DP columns) of each window
+    TS:   (n_real, wq_max, 30, nc_all * 7) float32 per-slot, per-row
+          energy rows (integer-valued), 7 energies per condition
 
-def _screen_blocks_xla(meta, ptb_t, ts_int, *, wq_max, wt_max, nc_all,
-                       eval_on, BB, BPC):
-    """XLA twin of ops/pallas_screen.screen_blocks over the same
-    slot-homogeneous aligned layout: per BPC-block chunk, ONE well-shaped
-    one-hot MXU GEMM (batch=BPC, M=wt*BB, K=30, N=wq*nc*7) materializes
-    every row's exact integer energies at once, and the row scan body is
-    pure elementwise — no batched-tiny einsums, no per-row table work.
-
-    Returns (best (n_blocks, nc_all, BB), mg (n_blocks, BB),
-    M_rows (n_blocks, wq_max, wt_max, BB)); junk rows (r >= ql) of
-    M_rows repeat the last computed row, same contract as the kernel.
+    Each row's energies are selected by two one-hot f32 products at
+    Precision.HIGHEST: every output sums exactly one integer-valued
+    entry, so the result is exact.  Returns (best (nc_all, B) max M score
+    per condition, mgmax (B,) the eval condition's gapped-best channel,
+    M_rows (wq_max, B, wt_max + 1) the eval condition's M rows with a
+    leading -1 column); with eval_on False mgmax stays NEG_I32 and M_rows
+    is zeros.
     """
-    n_blocks = meta.shape[0]
-    n_chunks = n_blocks // BPC
-    n_real = ts_int.shape[0]
+    B, wt_max = ptb.shape
+    n_real, wq_max = TS.shape[0], TS.shape[1]
+    nc_all = TS.shape[3] // 7
     hi_p = jax.lax.Precision.HIGHEST
+    col_ok = (jnp.arange(wt_max, dtype=jnp.int32)[None, :]
+              < wt_e[:, None])
+    oh_s = (sl[:, None] == jnp.arange(n_real)[None, :]).astype(jnp.float32)
+    # one-hot target-pair operand: exact (one-hot rows select single
+    # integer-valued f32 entries; HIGHEST reproduces f32)
+    ohp = (ptb[:, :, None]
+           == jnp.arange(30)[None, None, :]).astype(jnp.float32)
+    neg1 = jnp.full((nc_all, B, wt_max + 1), -1, jnp.int32)
+    negg = jnp.full((B, wt_max + 1), NEG_I32, jnp.int32)
 
-    meta_c = meta.reshape(n_chunks, BPC, 4)
-    ptb_c = ptb_t.reshape(n_chunks, BPC, wt_max, BB)
-
-    def shiftw(x, fill):
-        """x at column j-1 along the wt axis (axis=-2), `fill` at j=0."""
-        head = jnp.full(x.shape[:-2] + (1, x.shape[-1]), fill, x.dtype)
-        return jnp.concatenate([head, x[..., :-1, :]], axis=-2)
-
-    def run_chunk_blocks(meta_b, ptb_b):
-        sb = meta_b[:, 0]
-        ql_b = meta_b[:, 1]
-        wt_b = meta_b[:, 2]
-        valid_b = meta_b[:, 3] == 1
-        TSb = ts_int[jnp.clip(sb, 0, n_real - 1)]   # (BPC, wq, 30, nc7)
-        oh = (ptb_b[..., None]
-              == jnp.arange(30)[None, None, None, :]).astype(jnp.float32)
-        ohm = oh.reshape(BPC, wt_max * BB, 30)
-        TSm = jnp.transpose(TSb, (0, 2, 1, 3)).reshape(
-            BPC, 30, wq_max * nc_all * 7).astype(jnp.float32)
-        er = jnp.einsum('cxv,cvn->cxn', ohm, TSm, precision=hi_p,
+    def one_row(carry, ts_row, r_idx):
+        prevM, prevIq, prevIt, best, prevMg, mgmax = carry
+        rv = r_idx < ql             # (B,) row validity
+        mvalid = col_ok & rv[:, None]
+        T_eff = jnp.einsum('bs,svk->bvk', oh_s, ts_row, precision=hi_p,
+                           preferred_element_type=jnp.float32)
+        er = jnp.einsum('bjv,bvk->bjk', ohp, T_eff, precision=hi_p,
                         preferred_element_type=jnp.float32)
-        E = jnp.round(er).astype(jnp.int32).reshape(
-            BPC, wt_max, BB, wq_max, nc_all, 7)
-        # (wq, nc, BPC, wt, BB, 7): one physical transpose per chunk
-        E = jnp.transpose(E, (3, 4, 0, 1, 2, 5))
+        e = jnp.round(er).astype(jnp.int32).reshape(B, wt_max, nc_all, 7)
+        e = jnp.moveaxis(e, 2, 0)               # (nc', B, wt, 7)
+        dgmm, dgmq, dgmt = e[..., 0], e[..., 1], e[..., 2]
+        dgqi, dgqe = e[..., 3], e[..., 4]
+        dgti, dgte = e[..., 5], e[..., 6]
+        m = jnp.maximum(
+            jnp.maximum(_relu(prevM[..., :-1]) - dgmm,
+                        _relu(prevIq[..., :-1]) - dgmq),
+            _relu(prevIt[..., :-1]) - dgmt)
+        it = jnp.maximum(_relu(prevM[..., 1:]) - dgti,
+                         _relu(prevIt[..., 1:]) - dgte)
+        m_shift = jnp.concatenate(
+            [jnp.full((nc_all, B, 1), -1, jnp.int32), m[..., :-1]], axis=2)
+        a = jnp.maximum(_relu(m_shift) - dgqi, -dgqe)
+        ssum = jnp.cumsum(dgqe, axis=2)
+        iq = jax.lax.cummax(a + ssum, axis=2) - ssum
+        best = jnp.maximum(
+            best, jnp.max(jnp.where(mvalid[None], m, -1), axis=2))
+        z = neg1[..., :1]
+        newM = jnp.concatenate([z, m], 2)
+        newIq = jnp.concatenate([z, iq], 2)
+        newIt = jnp.concatenate([z, it], 2)
+        if eval_on:
+            # gapped-best channel of the EVAL condition: best M-state
+            # score among paths with >= 1 gap transition (no relu restart
+            # - that would begin a new gapless path); feeds the eval
+            # trust decision
+            g1 = jnp.where(prevMg[:, :-1] >= 0,
+                           prevMg[:, :-1] - dgmm[-1], NEG_I32)
+            mg = jnp.maximum(
+                jnp.maximum(g1, _relu(prevIq[-1, :, :-1]) - dgmq[-1]),
+                _relu(prevIt[-1, :, :-1]) - dgmt[-1])
+            newMg = jnp.concatenate([negg[:, :1], mg], 1)
+            mgmax = jnp.maximum(
+                mgmax, jnp.max(jnp.where(mvalid, mg, NEG_I32), axis=1))
+            ys = newM[-1]
+        else:
+            newMg = prevMg
+            ys = jnp.zeros((B, wt_max + 1), jnp.int32)
+        return (newM, newIq, newIt, best, newMg, mgmax), ys
 
-        col_ok = (jnp.arange(wt_max)[None, :, None]
-                  < wt_b[:, None, None])              # (BPC, wt, BB)
-        neg1 = jnp.full((nc_all, BPC, wt_max, BB), -1, jnp.int32)
-        negg = jnp.full((BPC, wt_max, BB), NEG_I32, jnp.int32)
+    # UNROLL rows per scan step (identical semantics; padded rows have rv
+    # False everywhere)
+    UNROLL = 2
+    wq_pad = -(-wq_max // UNROLL) * UNROLL
+    TS_rows = jnp.moveaxis(TS, 1, 0)            # (wq_max, n_real, ...)
+    if wq_pad > wq_max:
+        TS_rows = jnp.concatenate(
+            [TS_rows, jnp.zeros((wq_pad - wq_max,) + TS_rows.shape[1:],
+                                TS_rows.dtype)], axis=0)
+    TS_rows = TS_rows.reshape((wq_pad // UNROLL, UNROLL)
+                              + TS_rows.shape[1:])
+    r_ids = jnp.arange(wq_pad, dtype=jnp.int32).reshape(-1, UNROLL)
 
-        def row_step(carry, xs):
-            prevM, prevIq, prevIt, best, prevMg, mgmax = carry
-            e_r, r_idx = xs           # e_r: (nc, BPC, wt, BB, 7)
-            rv = r_idx < ql_b         # (BPC,)
-            dgmm, dgmq, dgmt = e_r[..., 0], e_r[..., 1], e_r[..., 2]
-            dgqi, dgqe = e_r[..., 3], e_r[..., 4]
-            dgti, dgte = e_r[..., 5], e_r[..., 6]
-            pM = shiftw(prevM, -1)
-            pIq = shiftw(prevIq, -1)
-            pIt = shiftw(prevIt, -1)
-            m = jnp.maximum(
-                jnp.maximum(_relu(pM) - dgmm, _relu(pIq) - dgmq),
-                _relu(pIt) - dgmt)
-            it = jnp.maximum(_relu(prevM) - dgti, _relu(prevIt) - dgte)
-            m_shift = shiftw(m, -1)
-            a = jnp.maximum(_relu(m_shift) - dgqi, -dgqe)
-            ssum = jnp.cumsum(dgqe, axis=2)
-            iq = jax.lax.cummax(a + ssum, axis=2) - ssum
-            rbest = jnp.max(jnp.where(col_ok[None], m, -1), axis=2)
-            best = jnp.where(rv[None, :, None],
-                             jnp.maximum(best, rbest), best)
-            if eval_on:
-                pMg = shiftw(prevMg, NEG_I32)
-                g1 = jnp.where(pMg >= 0, pMg - dgmm[-1], NEG_I32)
-                mg = jnp.maximum(
-                    jnp.maximum(g1, _relu(pIq[-1]) - dgmq[-1]),
-                    _relu(pIt[-1]) - dgmt[-1])
-                rmg = jnp.max(jnp.where(col_ok, mg, NEG_I32), axis=1)
-                mgmax = jnp.where(rv[:, None],
-                                  jnp.maximum(mgmax, rmg), mgmax)
-                prevMg = mg
-                ys = m[-1]            # (BPC, wt, BB)
-            else:
-                ys = m[0]
-            return (m, iq, it, best, prevMg, mgmax), ys
+    def row_step(carry, xs):
+        ts_rows, r_idx = xs
+        ys = []
+        for u in range(UNROLL):
+            carry, y = one_row(carry, ts_rows[u], r_idx[u])
+            ys.append(y)
+        return carry, jnp.stack(ys)
 
-        init = (neg1, neg1, neg1,
-                jnp.full((nc_all, BPC, BB), -1, jnp.int32),
-                negg, jnp.full((BPC, BB), NEG_I32, jnp.int32))
-        (_, _, _, best, _, mgmax), M_rows = jax.lax.scan(
-            row_step, init, (E, jnp.arange(wq_max, dtype=jnp.int32)))
-        best = jnp.where(valid_b[None, :, None], best, -1)
-        mgmax = jnp.where(valid_b[:, None], mgmax, NEG_I32)
-        return (jnp.transpose(best, (1, 0, 2)), mgmax,
-                jnp.transpose(M_rows, (1, 0, 2, 3)))
-
-    def chunk_step(_, xs):
-        meta_b, ptb_b = xs
-        active = jnp.any(meta_b[:, 3] == 1)
-
-        def go(args):
-            return run_chunk_blocks(*args)
-
-        def skip(args):
-            return (jnp.full((BPC, nc_all, BB), -1, jnp.int32),
-                    jnp.full((BPC, BB), NEG_I32, jnp.int32),
-                    jnp.full((BPC, wq_max, wt_max, BB), -1, jnp.int32))
-
-        return None, jax.lax.cond(active, go, skip, (meta_b, ptb_b))
-
-    _, (best_c, mg_c, mrows_c) = jax.lax.scan(
-        chunk_step, None, (meta_c, ptb_c))
-    return (best_c.reshape(n_blocks, nc_all, BB),
-            mg_c.reshape(n_blocks, BB),
-            mrows_c.reshape(n_blocks, wq_max, wt_max, BB))
+    init = (neg1, neg1, neg1,
+            jnp.full((nc_all, B), -1, jnp.int32),
+            negg, jnp.full((B,), NEG_I32, jnp.int32))
+    (_, _, _, best, _, mgmax), M_rows = jax.lax.scan(
+        row_step, init, (TS_rows, r_ids))
+    return best, mgmax, M_rows.reshape(wq_pad, B, wt_max + 1)[:wq_max]
 
 
 def panel_step_core(frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c,
@@ -370,8 +364,7 @@ def panel_step_core(frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c,
                     t_canon_eval, eval_tabs, eval_loop2m,
                     *, slot_meta, eval_const, word_len, num_os, max_words,
                     wq_max, tile_len, cap, kcap, num_cond, n_frags,
-                    s_max=1, k_max=1, eval_on=False, full=False,
-                    screen_impl="flat"):
+                    s_max=1, k_max=1, eval_on=False, full=False):
     """Device program: seeds + per-slot screening DP for a fragment batch.
 
     frags:       (n_frags, tile_len) uint8 db codes, padded DB_UNKNOWN
@@ -383,8 +376,8 @@ def panel_step_core(frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c,
     slot_meta:   STATIC tuple, one (oligo_len, minus, qpair_rows_tuple,
                  n_words) per real slot — folded into the compiled program
                  so every slot's DP runs at its exact oligo length with
-                 constant energy-table operands (MXU one-hot matmul, no
-                 gathers).
+                 constant energy-table operands (one-hot f32 products,
+                 no gathers).
 
     The candidate pool (all fragments x per-fragment compaction) is
     stable-sorted by slot; because invalid entries sort after every real
@@ -407,9 +400,8 @@ def panel_step_core(frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c,
       kept_block: (9, bkcap) int32 kept rows — flat_idx, slot, p, kmin,
         eval w0..w4 (packed flags/counts/ranges and the f32 bit patterns
         of dH/dS from the device gapless evaluator; zeros when
-        eval_on=False).  The resolve reads the tiny header first, then
-        only the used prefix of this block (two transfers instead of a
-        worst-case-sized one).
+        eval_on=False).  The resolve reads the header and the whole block
+        and uses its first n_kept rows.
       slot/p/valid: (n_frags, cap) per-candidate arrays.
       keep/needs_host: pool-order per-candidate arrays when full=True
       (tests), all-zeros placeholders otherwise.
@@ -510,7 +502,7 @@ def panel_step_core(frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c,
     TS = jnp.transpose(TS, (2, 3, 1, 0, 4)).reshape(
         max(n_real, 1), wq_max, 30, nc_all * 7).astype(jnp.float32)
 
-    # --- shared per-entry helpers (chunked XLA path and Pallas path) -----
+    # --- shared per-entry helpers -----------------------------------------
     def slot_scalars(sl):
         """Exact select-chains for the per-entry slot scalars."""
         B = sl.shape[0]
@@ -528,9 +520,7 @@ def panel_step_core(frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c,
 
     def win_decode(pp, fi, minus, wt_e):
         """Window codes decoded from the WORD stream: ceil(wt_max/7)
-        int32 gathers per window instead of wt_max byte gathers (the
-        element gather is the measured cost here — BASELINE.md round-5
-        DP bisection).  A window is device-usable only when every
+        int32 gathers per window instead of wt_max byte gathers.  A window is device-usable only when every
         covering word is valid (pure ACGT): windows containing
         N/degenerate/inosine target bases are routed to the host, which
         is a (slightly wider than the window: word validity covers up
@@ -628,101 +618,9 @@ def panel_step_core(frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c,
         B = CH
         ent_valid = sl < num_os
         ql, minus, wt_e, thr_e = slot_scalars(sl)
-        col_ok = (jnp.arange(wt_max, dtype=jnp.int32)[None, :]
-                  < wt_e[:, None])
-        oh_s = (sl[:, None] == jnp.arange(max(n_real, 1))[None, :]
-                ).astype(jnp.float32)
         needs_host, tb5, ptb = win_decode(pp, fi, minus, wt_e)
-
-        # one-hot target-pair operand: exact (one-hot rows select single
-        # integer-valued f32 entries; HIGHEST reproduces f32)
-        ohp = (ptb[:, :, None]
-               == jnp.arange(30)[None, None, :]).astype(jnp.float32)
-        neg1 = jnp.full((nc_all, B, wt_max + 1), -1, jnp.int32)
-        negg = jnp.full((B, wt_max + 1), NEG_I32, jnp.int32)
-
-        def one_row(carry, ts_row, r_idx):
-            prevM, prevIq, prevIt, best, prevMg, mgmax = carry
-            rv = r_idx < ql             # (B,) row validity
-            mvalid = col_ok & rv[:, None]
-            T_eff = jnp.einsum('bs,svk->bvk', oh_s, ts_row,
-                               precision=jax.lax.Precision.HIGHEST,
-                               preferred_element_type=jnp.float32)
-            er = jnp.einsum('bjv,bvk->bjk', ohp, T_eff,
-                            precision=jax.lax.Precision.HIGHEST,
-                            preferred_element_type=jnp.float32)
-            e = jnp.round(er).astype(jnp.int32).reshape(
-                B, wt_max, nc_all, 7)
-            e = jnp.moveaxis(e, 2, 0)               # (nc', B, wt, 7)
-            dgmm, dgmq, dgmt = e[..., 0], e[..., 1], e[..., 2]
-            dgqi, dgqe = e[..., 3], e[..., 4]
-            dgti, dgte = e[..., 5], e[..., 6]
-            m = jnp.maximum(
-                jnp.maximum(_relu(prevM[..., :-1]) - dgmm,
-                            _relu(prevIq[..., :-1]) - dgmq),
-                _relu(prevIt[..., :-1]) - dgmt)
-            it = jnp.maximum(_relu(prevM[..., 1:]) - dgti,
-                             _relu(prevIt[..., 1:]) - dgte)
-            m_shift = jnp.concatenate(
-                [jnp.full((nc_all, B, 1), -1, jnp.int32),
-                 m[..., :-1]], axis=2)
-            a = jnp.maximum(_relu(m_shift) - dgqi, -dgqe)
-            ssum = jnp.cumsum(dgqe, axis=2)
-            iq = jax.lax.cummax(a + ssum, axis=2) - ssum
-            best = jnp.maximum(
-                best, jnp.max(jnp.where(mvalid[None], m, -1), axis=2))
-            z = neg1[..., :1]
-            newM = jnp.concatenate([z, m], 2)
-            newIq = jnp.concatenate([z, iq], 2)
-            newIt = jnp.concatenate([z, it], 2)
-            if eval_on:
-                # gapped-best channel of the EVAL condition: best
-                # M-state score among paths with >= 1 gap transition
-                # (no relu restart - that would begin a new gapless
-                # path); feeds the eval trust decision
-                g1 = jnp.where(prevMg[:, :-1] >= 0,
-                               prevMg[:, :-1] - dgmm[-1], NEG_I32)
-                mg = jnp.maximum(
-                    jnp.maximum(g1,
-                                _relu(prevIq[-1, :, :-1]) - dgmq[-1]),
-                    _relu(prevIt[-1, :, :-1]) - dgmt[-1])
-                newMg = jnp.concatenate([negg[:, :1], mg], 1)
-                mgmax = jnp.maximum(
-                    mgmax, jnp.max(jnp.where(mvalid, mg, NEG_I32),
-                                   axis=1))
-                ys = newM[-1]
-            else:
-                newMg = prevMg
-                ys = jnp.zeros((B, wt_max + 1), jnp.int32)
-            return (newM, newIq, newIt, best, newMg, mgmax), ys
-
-        # UNROLL rows per scan step (identical semantics; padded rows
-        # have rv False everywhere)
-        UNROLL = 2
-        wq_pad = -(-wq_max // UNROLL) * UNROLL
-        TS_rows = jnp.moveaxis(TS, 1, 0)            # (wq_max, n_real, ...)
-        if wq_pad > wq_max:
-            TS_rows = jnp.concatenate(
-                [TS_rows, jnp.zeros((wq_pad - wq_max,) + TS_rows.shape[1:],
-                                    TS_rows.dtype)], axis=0)
-        TS_rows = TS_rows.reshape((wq_pad // UNROLL, UNROLL)
-                                  + TS_rows.shape[1:])
-        r_ids = jnp.arange(wq_pad, dtype=jnp.int32).reshape(-1, UNROLL)
-
-        def row_step(carry, xs):
-            ts_rows, r_idx = xs
-            ys = []
-            for u in range(UNROLL):
-                carry, y = one_row(carry, ts_rows[u], r_idx[u])
-                ys.append(y)
-            return carry, jnp.stack(ys)
-
-        init = (neg1, neg1, neg1,
-                jnp.full((nc_all, B), -1, jnp.int32),
-                negg, jnp.full((B,), NEG_I32, jnp.int32))
-        (_, _, _, best, _, mgmax), M_rows = jax.lax.scan(
-            row_step, init, (TS_rows, r_ids))
-        M_rows = M_rows.reshape(wq_pad, B, wt_max + 1)[:wq_max]
+        best, mgmax, M_rows = screen_dp(ptb, sl, ql, wt_e, TS,
+                                        eval_on=eval_on)
 
         keep = jnp.ones(B, dtype=bool)
         for c in range(num_cond):
@@ -750,106 +648,14 @@ def panel_step_core(frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c,
 
         return None, jax.lax.cond(active, go, skip, (sl, pp, fi))
 
-    if screen_impl != "flat" and n_real > 0:
-        # --- ALIGNED path: slot-homogeneous BB-blocks over a padded
-        # stream; the screen DP runs either as the Pallas kernel
-        # (ops/pallas_screen.py) or as the XLA per-block-GEMM form
-        # (_screen_blocks_xla below); the XLA side does seeding, window
-        # decode and the gapless eval in both cases -----------------------
-        from tntblast_tpu.ops import pallas_screen as _ps
-        BBp = _ps.BLOCK
-        cnt = jnp.bincount(key, length=num_os + 1)[:n_real].astype(
-            jnp.int32)
-        seg_start = jnp.concatenate(
-            [jnp.zeros(1, jnp.int32), jnp.cumsum(cnt)])[:-1]
-        acnt = ((cnt + BBp - 1) // BBp) * BBp
-        astart = jnp.concatenate(
-            [jnp.zeros(1, jnp.int32), jnp.cumsum(acnt)])[:-1]
-        bounds = astart + acnt
-        BPC = 32                       # blocks per eval chunk
-        nb0 = -(-(Bp + n_real * BBp) // BBp)
-        n_blocks = -(-nb0 // BPC) * BPC
-        P_pal = n_blocks * BBp
-        ii = jnp.arange(P_pal, dtype=jnp.int32)
-        s_i = jnp.searchsorted(bounds, ii, side='right').astype(jnp.int32)
-        s_c = jnp.clip(s_i, 0, n_real - 1)
-        within = ii - astart[s_c]
-        pvalid = (s_i < n_real) & (within >= 0) & (within < cnt[s_c])
-        src = jnp.clip(seg_start[s_c] + within, 0, pad_to - 1)
-        sl_pal = jnp.where(pvalid, s_c, num_os)
-        pp_pal = jnp.where(pvalid, p_str[src], 0)
-        fi_pal = jnp.where(pvalid, frag_str[src], 0)
-        order_pal = jnp.where(pvalid, order_str[src], 0)
-        ql_e, minus_e, wt_ee, thr_pal = slot_scalars(sl_pal)
-        nh_pal, tb5_pal, ptb_pal = win_decode(pp_pal, fi_pal, minus_e,
-                                              wt_ee)
-        ptb_t = jnp.transpose(
-            ptb_pal.reshape(n_blocks, BBp, wt_max), (0, 2, 1))
-        bst = jnp.arange(n_blocks, dtype=jnp.int32) * BBp
-        sb = jnp.searchsorted(bounds, bst, side='right').astype(jnp.int32)
-        sbc = jnp.clip(sb, 0, n_real - 1)
-        ql_b = jnp.asarray(ol_np, jnp.int32)[sbc]
-        bvalid = (sb < n_real) & ((bst - astart[sbc]) < cnt[sbc])
-        meta = jnp.stack(
-            [sbc, ql_b, ql_b + 2 * C.NUM_FLANK_BASE,
-             bvalid.astype(jnp.int32)], axis=1)
-        TS_int = jnp.round(TS).astype(jnp.int32)
-        if screen_impl == "pallas":
-            best_b, mg_b, mrows_b = _ps.screen_blocks(
-                meta, ptb_t, TS_int, n_real=n_real, wq_max=wq_max,
-                wt_max=wt_max, nc_all=nc_all, eval_on=eval_on, BB=BBp)
-        else:
-            best_b, mg_b, mrows_b = _screen_blocks_xla(
-                meta, ptb_t, TS_int, wq_max=wq_max, wt_max=wt_max,
-                nc_all=nc_all, eval_on=eval_on, BB=BBp, BPC=BPC)
-        best_pal = jnp.transpose(best_b, (1, 0, 2)).reshape(
-            nc_all, P_pal)
-        keep_pal = jnp.ones(P_pal, bool)
-        for c in range(num_cond):
-            keep_pal = keep_pal & ((best_pal[c] >= thr_pal[c])
-                                   | (thr_pal[c] == INT_MIN))
-        if eval_on:
-            mg_pal = mg_b.reshape(P_pal)
-            CHP = BPC * BBp
-            ev_parts = []
-            total_aligned = bounds[n_real - 1]
-            for ci in range(n_blocks // BPC):
-                b0 = ci * BPC
-                slc = slice(ci * CHP, (ci + 1) * CHP)
-
-                def go_ev(args, b0=b0, slc=slc):
-                    mr = mrows_b[b0:b0 + BPC]     # (BPC, wq, wt, BB)
-                    mr = jnp.transpose(mr, (1, 0, 3, 2)).reshape(
-                        wq_max, CHP, wt_max)
-                    mr = jnp.concatenate(
-                        [jnp.full((wq_max, CHP, 1), -1, jnp.int32), mr],
-                        axis=2)
-                    return pack_eval(mr, mg_pal[slc], tb5_pal[slc],
-                                     sl_pal[slc], ql_e[slc], wt_ee[slc],
-                                     nh_pal[slc], pvalid[slc])
-
-                def skip_ev(args):
-                    return jnp.zeros((CHP, 5), jnp.int32)
-
-                ev_parts.append(jax.lax.cond(
-                    total_aligned > ci * CHP, go_ev, skip_ev, ()))
-            ev_all = jnp.concatenate(ev_parts, axis=0)
-        else:
-            ev_all = jnp.zeros((P_pal, 5), jnp.int32)
-        keep_all = (keep_pal | nh_pal) & pvalid
-        nh_all = nh_pal & pvalid
-        slot_str, p_str, frag_str, order_str = (sl_pal, pp_pal, fi_pal,
-                                                order_pal)
-        pad_to = P_pal
-    else:
-        xs_c = (slot_str.reshape(n_chunks, CH),
-                p_str.reshape(n_chunks, CH),
-                frag_str.reshape(n_chunks, CH),
-                jnp.arange(n_chunks, dtype=jnp.int32) * CH)
-        _, (keep_c, nh_c, ev_c) = jax.lax.scan(chunk_step, None, xs_c)
-        keep_all = keep_c.reshape(pad_to)
-        nh_all = nh_c.reshape(pad_to)
-        ev_all = ev_c.reshape(pad_to, 5)
+    xs_c = (slot_str.reshape(n_chunks, CH),
+            p_str.reshape(n_chunks, CH),
+            frag_str.reshape(n_chunks, CH),
+            jnp.arange(n_chunks, dtype=jnp.int32) * CH)
+    _, (keep_c, nh_c, ev_c) = jax.lax.scan(chunk_step, None, xs_c)
+    keep_all = keep_c.reshape(pad_to)
+    nh_all = nh_c.reshape(pad_to)
+    ev_all = ev_c.reshape(pad_to, 5)
 
     # --- kept-seed compaction + kmin recomputation -----------------------
     n_kept = keep_all.sum().astype(jnp.int32)
@@ -903,8 +709,7 @@ def panel_step_core(frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c,
 # tuple of np arrays (words, word table, energy/eval tables, thresholds).
 # Tables are per-search constants a few MB at most; baking them into the
 # compiled program (instead of passing operands) lets XLA constant-fold
-# the table preparation and fuse the energy selection (measured ~2x on
-# the scan stage, BASELINE.md round 5).
+# the table preparation and fuse the energy selection.
 _PANEL_TABLES = {}
 
 
@@ -922,7 +727,7 @@ def register_panel_tables(args):
 
 @functools.lru_cache(maxsize=None)
 def _panel_step(cfg_key, slot_meta, eval_const, n_frags, s_max, k_max,
-                eval_on, full, tab_digest, screen_impl="flat"):
+                eval_on, full, tab_digest):
     """Module-level jit cache: the SAME compiled program serves every
     DevicePanel instance with identical static configuration — a fresh
     panel per search (e.g. every bench iteration) must not retrace or
@@ -936,8 +741,7 @@ def _panel_step(cfg_key, slot_meta, eval_const, n_frags, s_max, k_max,
         word_len=word_len, num_os=num_os, max_words=max_words,
         wq_max=wq_max, tile_len=tile_len, cap=cap,
         kcap=kcap, num_cond=num_cond, n_frags=n_frags,
-        s_max=s_max, k_max=k_max, eval_on=eval_on, full=full,
-        screen_impl=screen_impl)
+        s_max=s_max, k_max=k_max, eval_on=eval_on, full=full)
     tabs = _PANEL_TABLES[tab_digest]
 
     def stepfn(fp, fl, ns, ne, ep, ec, iov, *_legacy_table_args):
@@ -1033,32 +837,17 @@ class DevicePanel:
                      jnp.asarray(ev_loop))
         self._tab_digest = register_panel_tables(
             (ow, w_tab, tcan, thr, tcan_eval, ev_tabs, ev_loop))
-        # Screen implementation: "flat" (default; chunked scan over the
-        # sorted stream), "aligned" (slot-homogeneous blocks + per-block
-        # MXU GEMMs, _screen_blocks_xla), "pallas" (ops/pallas_screen).
-        # All three are bit-identical by test; the non-default forms are
-        # opt-in while their on-chip profiles are being established.
-        import os as _os
-        impl = _os.environ.get("TNTBLAST_TPU_SCREEN_IMPL", "")
-        if not impl:
-            impl = ("pallas"
-                    if _os.environ.get("TNTBLAST_TPU_PALLAS", "0") == "1"
-                    else "flat")
-        self.screen_impl = impl if self.n_real > 0 else "flat"
-        self._steps = {}
 
     def _step(self, n_frags, full):
         cfg = self.config
         return _panel_step(cfg.key(), self.slot_meta, self.eval_const,
                            n_frags, self.s_max, self.k_max,
-                           self.eval_on, full, self._tab_digest,
-                           screen_impl=self.screen_impl)
+                           self.eval_on, full, self._tab_digest)
 
     # host->device payload compression: fragments ride as a 2-bit base
     # stream (4 bases/byte) plus a sideband of N-runs and scattered
     # non-ACGT exceptions; the tile padding is synthesized on device from
-    # frag_len.  4x less h2d on a link measured as low as single-digit
-    # MB/s (BASELINE.md).  A fragment whose sideband overflows the fixed
+    # frag_len: 4x less host-to-device traffic.  A fragment whose sideband overflows the fixed
     # capacities is flagged: the device marks it overflowed and the host
     # searches it directly (the existing fallback path).
     RUN_CAP = 256          # N-run capacity per fragment
@@ -1130,9 +919,8 @@ class DevicePanel:
         return n_kept, overflow, slot_over, n_cand, counts
 
     def resolve_fragments(self, pending):
-        """Fast resolve: ONE device-to-host transfer of the packed buffer
-        (kept seeds + counts); the full candidate arrays never leave the
-        device."""
+        """Fast resolve: the header and the packed kept-seed block cross
+        to the host; the full candidate arrays never leave the device."""
         n, out = pending
         cfg = self.config
         header = np.asarray(out[0])
@@ -1140,8 +928,9 @@ class DevicePanel:
          counts) = self._unpack_header(n, header)
         bkcap = cfg.batch_kcap(n)
         m = min(n_kept, bkcap)
-        # second transfer: only the used prefix of the kept block
-        kept = np.asarray(out[1][:, :m])
+        # the whole block, sliced on the host: slicing the device array
+        # by the kept count would compile one program per distinct count
+        kept = np.asarray(out[1])[:, :m]
         flat_idx, os_k, p_k, kmin_k = (kept[0], kept[1],
                                        kept[2], kept[3])
         evw = kept[4:9]
@@ -1174,7 +963,7 @@ class DevicePanel:
         slot, p, keep, needs_host, valid = map(np.asarray, out[2:7])
         kmin_full = np.zeros((n, cfg.cap), dtype=np.int32)
         m = min(n_kept, cfg.batch_kcap(n))
-        kept = np.asarray(out[1][:, :m])
+        kept = np.asarray(out[1])[:, :m]
         fi = kept[0] // cfg.cap
         ri = kept[0] % cfg.cap
         kmin_full[fi, ri] = kept[3]

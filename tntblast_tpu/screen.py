@@ -1,8 +1,8 @@
-"""Device-side candidate screening (the TPU fast path).
+"""Device-side candidate screening (the device fast path).
 
 The reference evaluates every seeded window with the full DP + co-optimal
 enumeration + exact re-scoring cascade (reference bind_oligo.cpp:124-454).
-Almost all windows fail the Tm/dG filters; the TPU pipeline discards them
+Almost all windows fail the Tm/dG filters; the device pipeline discards them
 with one batched device DP before the exact (bit-reproducing) engine ever
 sees them.
 
@@ -70,7 +70,7 @@ class ScreenStub:
         return False
 
 
-class TpuScreen:
+class DeviceScreen:
     """Batched DP screen bound to one native engine's parameter tables.
 
     The DP runs over the SCREENING table (update_dp_param_screen: event

@@ -93,7 +93,7 @@ class BindContext:
         self._frag = None             # lazy host k-mer index (fallback path)
         self.caches = caches
         self.defline = defline
-        self.screen = screen          # optional TpuScreen (device DP filter)
+        self.screen = screen          # optional DeviceScreen (device DP filter)
         self.panel_seeds = panel_seeds  # slot_key -> (q, t) device seeds
 
     @property

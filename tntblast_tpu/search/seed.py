@@ -11,8 +11,8 @@ offset (seq_hash.h DNAHash_iterator::offset) — not the sequence position —
 and downstream code derives seed diagonals from it; we reproduce that
 exactly.
 
-Implementation is vectorized numpy over the fragment (the TPU path replaces
-the scan with a jnp convolution-style packing; see ops/seed_jax.py).
+Implementation is vectorized numpy over the fragment (the device path
+seeds on the device instead; see parallel/device_search._seed_fragment).
 """
 
 import numpy as np
