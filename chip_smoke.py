@@ -22,11 +22,15 @@ process that owns the card:
 
 Every number line names the card and its power limit.  The last line of
 standard output is one JSON object, printed only when every phase passed.
+Each search run is logged as it begins and ends, under a watchdog: a run
+that outlasts its limit dumps every thread's stack to stderr and ends the
+script with a non-zero exit.
 
 `--four-cards` runs only the multi-device paths instead, on the 8 Mb and
 128 Mb deployments: `--mesh T` over four cards in this process, and four
 `parallel.multiproc` ranks bound to one card each, both against this
-process's one-card device hit list.  This process and each rank then get
+process's one-card device hit list.  Every rank must say that it runs the
+device path on a GPU.  This process and each rank then get
 a share of every card's memory (XLA_PYTHON_CLIENT_MEM_FRACTION).
 
 Run from the repository root:  python3 chip_smoke.py [--four-cards]
@@ -34,10 +38,12 @@ Run from the repository root:  python3 chip_smoke.py [--four-cards]
 
 import argparse
 import contextlib
+import faulthandler
 import hashlib
 import io
 import json
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -49,7 +55,11 @@ OUT = os.path.join(WORK, "smoke")
 REQUIRED_PLATFORM = "gpu"
 WARM_BASES = 1_000_000          # warm-up slice of the 128 Mb target
 FOUR_CARD_MEM_FRACTION = "0.3"  # per process and card in --four-cards
+RUN_LIMIT_S = 120     # watchdog on one search run, compile included
+RANKS_LIMIT_S = 180   # four multiproc ranks, start-up and compile included
+GPU_PATH = "device path; default backend gpu"
 BACKEND_COMPILE_EVENT = "/jax/core/compile/backend_compile_duration"
+CACHE_HIT_EVENT = "/jax/compilation_cache/cache_hits"
 # the test files that hold `gpu`-marked tests (named, not collected from
 # tests/, so that another installed `tests` package cannot shadow the
 # repository's during collection)
@@ -58,6 +68,7 @@ GPU_TEST_FILES = ("tests/test_device_search.py",
 
 CARD = "card unknown"
 COMPILES = [0]
+CACHE_HITS = [0]
 
 
 def log(msg):
@@ -72,17 +83,19 @@ def sha256(path):
     return h.hexdigest()
 
 
-def nvidia_smi():
-    """Name and power limit of each card, as nvidia-smi gives them."""
+@contextlib.contextmanager
+def watchdog(what, limit):
+    """Logs the start and end of `what`.  If it has not ended after
+    `limit` seconds, every thread's stack goes to stderr and the process
+    ends with a non-zero exit, so that a hang shows where it is."""
+    log(f"begin {what}")
+    t0 = time.perf_counter()
+    faulthandler.dump_traceback_later(limit, exit=True)
     try:
-        res = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        return [f"nvidia-smi unavailable ({type(e).__name__})"]
-    lines = [ln.strip() for ln in res.stdout.splitlines() if ln.strip()]
-    return lines or [f"nvidia-smi gave nothing (exit {res.returncode})"]
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    log(f"end {what} ({time.perf_counter() - t0:.3f} s)")
 
 
 def device_report(count):
@@ -90,6 +103,8 @@ def device_report(count):
     GPUs or more."""
     global CARD
     import jax
+
+    from tntblast_tpu.devinfo import nvidia_smi
 
     devs = jax.devices()
     dev = devs[0]
@@ -113,7 +128,12 @@ def device_report(count):
         if event == BACKEND_COMPILE_EVENT:
             COMPILES[0] += 1
 
+    def on_hit(event, **_):
+        if event == CACHE_HIT_EVENT:
+            CACHE_HITS[0] += 1
+
     monitoring.register_event_duration_secs_listener(on_event)
+    monitoring.register_event_listener(on_hit)
     return dev
 
 
@@ -150,10 +170,11 @@ def run_cli(argv, cwd=None):
     return rc, time.perf_counter() - t0, err.getvalue()
 
 
-def checked_run(name, argv, cwd=None):
-    rc, dt, err = run_cli(argv, cwd)
+def checked_run(what, argv, cwd=None):
+    with watchdog(what, RUN_LIMIT_S):
+        rc, dt, err = run_cli(argv, cwd)
     if rc != 0:
-        raise SystemExit(f"chip_smoke: {name} exited {rc}: {err[-2000:]}")
+        raise SystemExit(f"chip_smoke: {what} exited {rc}: {err[-2000:]}")
     return dt, err
 
 
@@ -245,24 +266,35 @@ def bench_panel_step():
 
 def compile_check():
     """Phase (c): compile the panel step at bench widths, with the
-    persistent compile cache off so that the time is a cold compile."""
+    persistent compile cache off so that the time is a cold compile.  JAX
+    decides once per process whether it uses that cache, so the decision
+    is reset around the compile."""
     import jax
+    from jax.experimental.compilation_cache import compilation_cache
 
     dp, frags = bench_panel_step()
     cfg = dp.config
     payload = dp._pack_host(frags)
     cached = jax.config.jax_enable_compilation_cache
     jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    n0, hits = COMPILES[0], CACHE_HITS[0]
     try:
-        t0 = time.perf_counter()
-        compiled = dp._step(len(frags), False).lower(
-            *payload, *dp.args).compile()
-        dt = time.perf_counter() - t0
+        with watchdog("compile check", RUN_LIMIT_S):
+            t0 = time.perf_counter()
+            compiled = dp._step(len(frags), False).lower(
+                *payload, *dp.args).compile()
+            dt = time.perf_counter() - t0
     finally:
         jax.config.update("jax_enable_compilation_cache", cached)
+        compilation_cache.reset_cache()
+    if COMPILES[0] == n0 or CACHE_HITS[0] != hits:
+        raise SystemExit("chip_smoke: the compile check was served from a "
+                         "cache, not compiled")
     log(f"compile: panel step at bench widths (batch {len(frags)}, tile "
         f"{cfg.tile_len}, slots {dp.n_real}, wq {cfg.wq_max}, cap "
-        f"{cfg.cap}, conditions {cfg.num_cond}) compiled in {dt:.3f} s")
+        f"{cfg.cap}, conditions {cfg.num_cond}) compiled cold in "
+        f"{dt:.3f} s")
     log(f"compile: memory_analysis {compiled.memory_analysis()}")
 
 
@@ -282,9 +314,10 @@ def gpu_tests():
 
     count = Count()
     t0 = time.perf_counter()
-    rc = pytest.main(["-q", "-m", "gpu", "-p", "no:cacheprovider"]
-                     + [os.path.join(REPO, f) for f in GPU_TEST_FILES],
-                     plugins=[count])
+    with watchdog("gpu tests", RUN_LIMIT_S):
+        rc = pytest.main(["-q", "-m", "gpu", "-p", "no:cacheprovider"]
+                         + [os.path.join(REPO, f) for f in GPU_TEST_FILES],
+                         plugins=[count])
     dt = time.perf_counter() - t0
     for nodeid in count.passed:
         log(f"gpu test passed: {nodeid}")
@@ -303,8 +336,9 @@ def golden_parity():
     for name in CONFIGS:
         args = (GOLD / f"{name}.cmd").read_text().split()
         out = os.path.join(OUT, f"golden_{name}.out")
-        dt, _ = checked_run(name, args + ["-o", out, "--tpu-screen", "T",
-                                          "-v", "F"], cwd=DATA)
+        dt, _ = checked_run(f"golden {name} device",
+                            args + ["-o", out, "--tpu-screen", "T", "-v", "F"],
+                            cwd=DATA)
         got = open(out).read() if os.path.exists(out) else ""
         if got != (GOLD / f"{name}.out").read_text():
             raise SystemExit(f"chip_smoke: golden {name}: device hit list "
@@ -321,17 +355,18 @@ def measure(dev, name, fna, warm, flags, mb, device):
     label = "device" if device else "host"
     extra = ["--tpu-screen", "T"] if device else []
     out = os.path.join(OUT, f"{name.replace(' ', '_')}_{label}.out")
-    warm_s, _ = checked_run(name, flags + ["-d", warm, "-o", out, "-v", "F"]
-                            + extra)
+    warm_s, _ = checked_run(f"{name} {label} warm-up",
+                            flags + ["-d", warm, "-o", out, "-v", "F"] + extra)
     n0 = COMPILES[0]
-    steady_s, err = checked_run(name, flags + ["-d", fna, "-o", out,
-                                               "-v", "F"] + extra)
+    steady_s, err = checked_run(f"{name} {label} steady",
+                                flags + ["-d", fna, "-o", out, "-v", "F"]
+                                + extra)
     digest = sha256(out)
     mem = f" peak_bytes_in_use={peak_bytes(dev)}" if device else ""
     log(f"{name} {label}: set-up {warm_s:.3f} s (warm-up slice, compile "
         f"included), steady {steady_s:.3f} s = {mb / steady_s:.3f} Mb/s, "
         f"compiles in steady run {COMPILES[0] - n0}, sha256 {digest}{mem}")
-    if device and "device path" not in err:
+    if device and GPU_PATH not in err:
         raise SystemExit(f"chip_smoke: {name}: device path did not run: "
                          f"{err[-1000:]}")
     return digest
@@ -364,8 +399,9 @@ def cache_check(dep):
     name, fna, _, flags, mb = dep
     n0 = COMPILES[0]
     out = os.path.join(OUT, "repeat_device.out")
-    dt, _ = checked_run(name, flags + ["-d", fna, "-o", out, "-v", "F",
-                                       "--tpu-screen", "T"])
+    dt, _ = checked_run(f"{name} device repeat",
+                        flags + ["-d", fna, "-o", out, "-v", "F",
+                                 "--tpu-screen", "T"])
     n = COMPILES[0] - n0
     log(f"cache: repeated {name} device run {dt:.3f} s = {mb / dt:.3f} "
         f"Mb/s, {n} new compilations")
@@ -384,35 +420,56 @@ def free_port():
 
 def multiproc_run(name, argv, n):
     """`n` parallel.multiproc ranks, rank i bound to card i; rank 0
-    writes the hit list.  Returns seconds."""
+    writes the hit list, and every rank must say that it runs the device
+    path on a GPU.  Ranks still running after RANKS_LIMIT_S dump their
+    stacks (faulthandler on SIGABRT) and are killed.  Returns seconds."""
     port = free_port()
     env = dict(os.environ, XLA_PYTHON_CLIENT_MEM_FRACTION=(
         FOUR_CARD_MEM_FRACTION))
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO] + [p for p in [env.get("PYTHONPATH")] if p])
     t0 = time.perf_counter()
-    procs = []
+    procs, logs = [], []
     for i in range(n):
-        cmd = [sys.executable, "-m", "tntblast_tpu.parallel.multiproc",
+        cmd = [sys.executable, "-X", "faulthandler",
+               "-m", "tntblast_tpu.parallel.multiproc",
                "--coordinator", f"localhost:{port}", "--num-procs", str(n),
                "--proc-id", str(i), "--local-device-ids", str(i), "--"]
-        procs.append(subprocess.Popen(
-            cmd + argv, cwd=REPO, env=env, stdout=subprocess.DEVNULL,
-            stderr=subprocess.PIPE, text=True))
-    errs = []
+        logs.append(os.path.join(OUT, f"rank{i}.err"))
+        with open(logs[-1], "w") as err:
+            procs.append(subprocess.Popen(
+                cmd + argv, cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+                stderr=err))
+    deadline = time.monotonic() + RANKS_LIMIT_S
     try:
         for p in procs:
-            errs.append(p.communicate(timeout=1200)[1])
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        log(f"{name}: multiproc ranks still running after {RANKS_LIMIT_S} "
+            "s; their stacks follow")
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGABRT)
+        time.sleep(5)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait()
+            p.wait()
     dt = time.perf_counter() - t0
-    bad = [(i, p.returncode) for i, p in enumerate(procs) if p.returncode]
+    errs = []
+    for path in logs:
+        with open(path) as fh:
+            errs.append("".join(ln for ln in fh
+                                if "Nvml call failed" not in ln))
+    bad = [i for i, p in enumerate(procs)
+           if p.returncode or GPU_PATH not in errs[i]]
     if bad:
-        raise SystemExit(f"chip_smoke: {name}: multiproc ranks failed {bad}: "
-                         f"{errs[bad[0][0]][-2000:]}")
+        raise SystemExit(
+            f"chip_smoke: {name}: multiproc ranks {bad} failed or ran off "
+            f"the GPU (exit codes {[p.returncode for p in procs]})"
+            + "".join(f"\n--- rank {i} stderr\n{errs[i][-3000:]}"
+                      for i in bad))
     return dt
 
 
@@ -422,17 +479,22 @@ def four_cards(dev, n):
                                        + chromosome_deployments()):
         one = measure(dev, name, fna, warm, flags, mb, device=True)
         out = os.path.join(OUT, f"{name.replace(' ', '_')}_mesh.out")
-        checked_run(name, flags + ["-d", warm, "-o", out, "-v", "F",
-                                   "--mesh", "T"])
-        dt, _ = checked_run(name, flags + ["-d", fna, "-o", out, "-v", "F",
-                                           "--mesh", "T"])
+        checked_run(f"{name} --mesh T warm-up",
+                    flags + ["-d", warm, "-o", out, "-v", "F", "--mesh", "T"])
+        dt, err = checked_run(f"{name} --mesh T steady",
+                              flags + ["-d", fna, "-o", out, "-v", "F",
+                                       "--mesh", "T"])
+        if GPU_PATH not in err:
+            raise SystemExit(f"chip_smoke: {name} --mesh T: device path did "
+                             f"not run on a GPU: {err[-1000:]}")
         mesh = sha256(out)
         log(f"{name} --mesh T over {n} cards: steady {dt:.3f} s = "
             f"{mb / dt:.3f} Mb/s (compile in warm-up), sha256 {mesh}, "
             f"peak_bytes_in_use(card 0)={peak_bytes(dev)}")
         out = os.path.join(OUT, f"{name.replace(' ', '_')}_multiproc.out")
-        dt = multiproc_run(name, flags + ["-d", fna, "-o", out, "-v", "F",
-                                          "--tpu-screen", "T"], n)
+        with watchdog(f"{name} multiproc {n} ranks", RANKS_LIMIT_S + 60):
+            dt = multiproc_run(name, flags + ["-d", fna, "-o", out, "-v", "F",
+                                              "--tpu-screen", "T"], n)
         ranks = sha256(out)
         log(f"{name} multiproc {n} ranks x 1 card: {dt:.3f} s = "
             f"{mb / dt:.3f} Mb/s (rank start-up and compile included), "

@@ -77,6 +77,36 @@ def test_auto_selects_device_path_on_gpu(monkeypatch):
     assert not select_device_path(opt, [FakeGpu()], stream=err)
 
 
+@pytest.mark.parametrize("option", ["tpu_screen", "use_mesh"])
+def test_forced_needs_gpu_or_asked_platform(option):
+    """A forced device path on a backend that JAX_PLATFORMS did not name
+    (JAX fell back to the CPU because CUDA failed to start) is a device
+    error, not a device run on the CPU."""
+    import jax
+
+    from tntblast_tpu.engine import DeviceError, select_device_path
+    from tntblast_tpu.options import Options
+
+    class FakeCpu:
+        platform = "cpu"
+        device_kind = "cpu"
+
+    opt = Options()
+    setattr(opt, option, True)
+    asked = jax.config.jax_platforms
+    jax.config.update("jax_platforms", None)
+    try:
+        with pytest.raises(DeviceError, match="found the cpu backend"):
+            select_device_path(opt, [FakeCpu()], stream=io.StringIO())
+        setattr(opt, option, False)
+        opt.tpu_screen = "auto"
+        err = io.StringIO()
+        assert not select_device_path(opt, [FakeCpu()], stream=err)
+        assert err.getvalue() == "host path; default backend cpu (cpu)\n"
+    finally:
+        jax.config.update("jax_platforms", asked)
+
+
 @pytest.mark.parametrize("threads", ["1", "4"])
 def test_device_error_exits_nonzero(tmp_path, monkeypatch, capsys,
                                     threads):
